@@ -1,7 +1,8 @@
-"""openvvc_tpu — a TPU-native VVC (H.266) decoder.
+"""openvvc_tpu — a bit-exact VVC (H.266) decoder with a JAX device lane.
 
 Host-side demux + CABAC entropy decoding emit per-CTU mode/residual tensors;
-all pixel reconstruction runs as batched JAX/XLA/Pallas kernels on TPU.
+pixel reconstruction runs as one fused JAX/XLA program per picture on the
+accelerator (an NVIDIA GPU).
 See SURVEY.md for the architecture blueprint.
 """
 

@@ -4,7 +4,7 @@ Fresh implementation of ITU-T H.266 section 7.3.1 (NAL unit syntax) and
 Annex B (byte-stream format). Mirrors the capability of the reference demuxer
 (/root/reference/libovvc/ovdmx.c: start-code scan, EPB strip, picture-unit
 grouping) without its chunked-IO machinery: host RAM is not the bottleneck for
-the TPU pipeline, so we demux whole buffers/memory-mapped files.
+the device pipeline, so we demux whole buffers/memory-mapped files.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The shared library is rebuilt automatically from source when missing or
 stale (gcc is part of the toolchain). Python fallbacks exist for every
 native component; the natives are drop-in accelerators for the host parse
-path (CABAC entry decode), keeping the TPU compute path in JAX/XLA.
+path (CABAC entry decode), keeping the device compute path in JAX/XLA.
 """
 
 from __future__ import annotations
@@ -28,8 +28,6 @@ _SRC_DBF = os.path.join(_DIR, "dbf.c")
 
 _SRC_SAO = os.path.join(_DIR, "sao.c")
 
-_SRC_MCPACK = os.path.join(_DIR, "mcpack.c")
-
 _HDRS = (os.path.join(_DIR, "ov_shared.h"), os.path.join(_DIR, "tables.h"),
          os.path.join(_DIR, "cabac_inl.h"), os.path.join(_DIR, "gpm_inl.h"))
 
@@ -38,7 +36,7 @@ def _build():
     subprocess.run(
         ["gcc", "-O3", "-march=native", "-fno-math-errno", "-shared",
          "-fPIC", "-o", _LIB, _SRC, _SRC_RES,
-         _SRC_PARSE, _SRC_RECON, _SRC_DBF, _SRC_SAO, _SRC_MCPACK],
+         _SRC_PARSE, _SRC_RECON, _SRC_DBF, _SRC_SAO],
         check=True,
         capture_output=True,
     )
@@ -63,7 +61,7 @@ def load_cabac_lib():
         return _LIB_HANDLE
     try:
         srcs = (_SRC, _SRC_RES, _SRC_PARSE, _SRC_RECON, _SRC_DBF,
-                _SRC_SAO, _SRC_MCPACK) + _HDRS
+                _SRC_SAO) + _HDRS
         if (not os.path.exists(_LIB)
                 or any(os.path.getmtime(_LIB) < os.path.getmtime(s)
                        for s in srcs)):
@@ -93,12 +91,6 @@ def load_cabac_lib():
     lib.cabac_overread.argtypes = [ctypes.c_void_p]
     lib.cabac_bitpos.restype = ctypes.c_int64
     lib.cabac_bitpos.argtypes = [ctypes.c_void_p]
-    lib.ov_mc_jobs.restype = ctypes.c_int
-    vp_ = ctypes.c_void_p
-    lib.ov_mc_jobs.argtypes = [vp_, vp_, vp_, vp_, vp_, vp_, vp_,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               vp_, vp_, vp_]
     lib.rc_decode_tb.restype = ctypes.c_int64
     lib.rc_decode_tb.argtypes = [
         ctypes.c_void_p,
@@ -1170,7 +1162,7 @@ def native_entry_ctx_from_raw(raw):
 
 
 # ---------------------------------------------------------------------------
-# Device-IR builder (ov_build_ir): dense per-frame tensors for the TPU path
+# Device-IR builder (ov_build_ir): dense per-frame tensors for the device path
 # ---------------------------------------------------------------------------
 
 _ir_proto_done = False
@@ -1353,38 +1345,3 @@ def build_ir_entry_native(raw, ir: FrameIR, dbf, csign, nb_refs0, nb_refs1,
         ir.dtu_coef[entry_idx] = dtc
     return True
 
-
-def mc_jobs_native(ir, lut0, lut1, uhp, uwp, pad_l, pad_c):
-    """C quadtree job extraction (mcpack.c ov_mc_jobs): returns
-    (jobs_by_class, cmap) with jobs_by_class[L] an (n, 22) int32 array in
-    the same row order and field layout as the numpy extract_jobs path.
-    Returns None when the native library is unavailable."""
-    import numpy as np
-
-    lib = load_cabac_lib()
-    if lib is None:
-        return None
-    vp = ctypes.c_void_p
-    cmap = np.empty((uhp, uwp), np.int8)
-    cap = ir.uh * ir.uw
-    jobs = np.empty((cap, 22), np.int32)
-    counts = np.zeros(5, np.int32)
-    lut0 = np.ascontiguousarray(lut0, np.int32)
-    lut1 = np.ascontiguousarray(lut1, np.int32)
-    rc = lib.ov_mc_jobs(
-        vp(ir.gmask.ctypes.data), vp(ir.gmv.ctypes.data),
-        vp(ir.gref.ctypes.data), vp(ir.gw.ctypes.data),
-        vp(ir.ghpel.ctypes.data), vp(lut0.ctypes.data),
-        vp(lut1.ctypes.data), ir.uw, ir.uh, uhp, uwp, pad_l, pad_c,
-        vp(cmap.ctypes.data), vp(jobs.ctypes.data),
-        vp(counts.ctypes.data))
-    if rc != 0:
-        return None
-    out = {}
-    off = 0
-    for ci, L in enumerate((16, 8, 4, 2, 1)):
-        n = int(counts[ci])
-        if n:
-            out[L] = jobs[off:off + n].copy()
-        off += n
-    return out, cmap

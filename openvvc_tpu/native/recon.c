@@ -3193,7 +3193,7 @@ int64_t ov_recon_entry(const EntryParams *ep, const ReconParams *rp,
 
 /* ======================================================================
  * Device-IR builder: turn a parsed entry into the dense per-frame tensors
- * consumed by the TPU frame program (tpu/frame_program.py). Instead of
+ * consumed by the device frame program (tpu/frame_program.py). Instead of
  * reconstructing samples, it emits
  *   - residual planes (dequant + inverse transform per TU),
  *   - per-4x4-unit inter motion grids (clipped MVs, refs, BCW weights),

@@ -82,12 +82,9 @@ def dryrun_frame_pipeline(n_devices, gop="lowdelay", alf=False, frames=3,
 
     fp.pack_jobs = spy_pack
     fp.run_frame = spy_run
-    # the sharded band program consumes the XLA dense-MC args (margs) and
-    # dense residual planes; force the capture decode off the Pallas
-    # bundle layout and the device-residual TU records
-    prev_np = os.environ.get("OPENVVC_NO_PALLAS")
+    # the sharded band program consumes dense residual planes; force the
+    # capture decode off the device-residual TU records
     prev_dr = os.environ.get("OPENVVC_DEVICE_RESID")
-    os.environ["OPENVVC_NO_PALLAS"] = "1"
     os.environ["OPENVVC_DEVICE_RESID"] = "0"
     try:
         dec = Decoder(use_tpu=True)
@@ -95,12 +92,10 @@ def dryrun_frame_pipeline(n_devices, gop="lowdelay", alf=False, frames=3,
     finally:
         fp.run_frame = orig_run
         fp.pack_jobs = orig_pack
-        for k, prev in (("OPENVVC_NO_PALLAS", prev_np),
-                        ("OPENVVC_DEVICE_RESID", prev_dr)):
-            if prev is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = prev
+        if prev_dr is None:
+            os.environ.pop("OPENVVC_DEVICE_RESID", None)
+        else:
+            os.environ["OPENVVC_DEVICE_RESID"] = prev_dr
     n = len(out_frames)
     assert dec.stats.get("tpu_frames", 0) == n, \
         f"device path fell back: {dec.stats}"
@@ -163,7 +158,6 @@ def halo_selftest(n_devices, kill_halo=False):
     import jax
     import jax.numpy as jnp
     from jax import lax
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from openvvc_tpu.parallel.frame_shard import (band_dbf_luma, make_mesh,
@@ -206,9 +200,9 @@ def halo_selftest(n_devices, kill_halo=False):
             return band_dbf_luma(jnp, plane_b, lv, lh, b, b * uwb, uwb, T,
                                  bd_max)
 
-        fn = shard_map(band, mesh=mesh,
-                       in_specs=(P(None, "t"), P(), P()),
-                       out_specs=P(None, "t"), check_rep=False)
+        fn = jax.shard_map(band, mesh=mesh,
+                           in_specs=(P(None, "t"), P(), P()),
+                           out_specs=P(None, "t"), check_vma=False)
         got = np.asarray(jax.jit(fn)(jnp.asarray(plane), lvp, lhp))
     finally:
         if kill_halo:

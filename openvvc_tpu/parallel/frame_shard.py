@@ -1,7 +1,7 @@
 """Multi-chip frame reconstruction: the fused per-frame device program
 sharded tile-column-per-device over a jax.sharding.Mesh.
 
-Sharding design (SURVEY.md §5.8, the TPU-native replacement for the
+Sharding design (SURVEY.md §5.8, the device-side replacement for the
 reference's pthread entry parallelism + decoded-CTU condvar bitmask,
 ovthreads.c / dpb.c:1222-1361):
 
@@ -439,7 +439,6 @@ def run_frame_sharded(mesh, ddpb, slot, arrs, jobs_l_bands, jobs_c_bands,
     in place."""
     import jax
     import jax.numpy as jnp
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     T = mesh.devices.size
@@ -451,11 +450,11 @@ def run_frame_sharded(mesh, ddpb, slot, arrs, jobs_l_bands, jobs_c_bands,
     def step(dpb_y, dpb_cb, dpb_cr, slot, arrs, jobs_l, jobs_c, cfg):
         fn = functools.partial(band_frame_step, cfg=cfg, T=T)
         rep = P()
-        y, cb, cr = shard_map(
+        y, cb, cr = jax.shard_map(
             fn, mesh=mesh,
             in_specs=(rep, rep, rep, rep, rep, P("t"), P("t")),
             out_specs=(P(None, "t"), P(None, "t"), P(None, "t")),
-            check_rep=False,
+            check_vma=False,
         )(dpb_y, dpb_cb, dpb_cr, slot, arrs, jobs_l, jobs_c)
         # gather bands (XLA inserts the all-gather) and update the
         # replicated DPB slot

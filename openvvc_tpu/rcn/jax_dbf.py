@@ -262,8 +262,7 @@ def _luma_core(xp, win, beta, tc, mlp, mlq, bd_max):
 
     # ---- long filter ---------------------------------------------------
     # all per-segment table rows resolve by select-sum over the few
-    # possible filter lengths — element gathers run ~1000x below memory
-    # speed on TPU, selects are free
+    # possible filter lengths (no element gathers)
     mlp_f = xp.maximum(mlp, 3)
     mlq_f = xp.maximum(mlq, 3)
     combo = ((mlp_f - 3) >> 1) * 3 + ((mlq_f - 3) >> 1)  # [S, 1]
@@ -392,8 +391,7 @@ _DBF_PAD = 16
 
 def _win_slice(plane, ys, xs, h, w):
     """Slice-gather S windows of (h, w) — vmapped dynamic_slice lowers to
-    an XLA gather with slice sizes, which runs at memory speed on TPU
-    (element-indexed gathers do not)."""
+    one XLA gather with slice sizes."""
     import jax
 
     def one(y, x):

@@ -6,8 +6,7 @@ copy/one-pass paths exactly under the reference's shift structure
 (rcn_mc.c :380-1360):  h pass >> (bd-8), int16 wrap, v pass >> 6.
 A batch shares (w, h, plane-type); per-block (x, y, frac_x, frac_y) are
 data, so one compiled kernel serves every MV in a frame — the gather +
-two tensor contractions map onto the TPU VPU/MXU with no per-block
-control flow.
+two tensor contractions run with no per-block control flow.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ _NP_FILT_C = _with_identity(MC_FILTERS_C, 1)
 _NP_FILT_BLN = _with_identity(BILINEAR_FILTERS * 4, 0)  # 16*4=64 at tap 0
 
 # device copies are materialized per use: a module-level jnp.asarray would
-# spin up the TPU client at import for numpy-only callers, and caching the
+# spin up the device client at import for numpy-only callers, and caching the
 # result would leak tracers when first touched inside a jit trace
 
 

@@ -1,10 +1,9 @@
-"""Batched inverse transforms + dequant on TPU (JAX/XLA path).
+"""Batched inverse transforms + dequant on the device (JAX/XLA path).
 
-The transform stage is where the decoder's MXU work lives: every coded TB is
+The transform stage is where the decoder's matrix work lives: every coded TB is
 a pair of matrix multiplies against constant transform matrices (DCT-II /
 DST-VII / DCT-VIII). We batch all TBs of one size class and transform pair
-across a frame (or wavefront) into a single einsum over [N, h, w] — exactly
-the layout the MXU wants (reduction dims padded/tiled by XLA to 128).
+across a frame (or wavefront) into a single einsum over [N, h, w].
 
 All arithmetic is exact integer math in int32 (values fit: |coeff| < 2^16,
 matrix < 2^8, sums < 2^15 * 2^8 * 64 = 2^29), matching the numpy reference
@@ -28,7 +27,7 @@ from openvvc_tpu.rcn.ref_transform import _IQ_SCALE
 
 # device constants are materialized per call (inside jit they become trace
 # constants; caching them would leak tracers, and a module-level jnp.asarray
-# would spin up the TPU client for numpy-only importers)
+# would spin up the device client for numpy-only importers)
 
 
 def _j_matrix(key):

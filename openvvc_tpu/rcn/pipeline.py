@@ -4,10 +4,10 @@ Host parse emits the CU/TU IR; these passes sweep the IR and run the heavy
 sample math as a handful of batched XLA launches per frame, attaching
 results to the IR nodes. The sequential reconstruction loop then consumes
 the precomputed tensors instead of recomputing them per CU — keeping
-bit-exactness trivially (same math, batched) while the FIR/MXU work runs on
+bit-exactness trivially (same math, batched) while the FIR work runs on
 device. Equivalent of the reference's per-CU SIMD dispatch
 (/root/reference/libovvc/rcn_inter.c:430-720 + x86/rcn_mc_sse.c), re-shaped
-as frame-level batches for the TPU.
+as frame-level batches for the device.
 """
 
 from __future__ import annotations
@@ -37,51 +37,14 @@ def _dev_plane(frame, name):
     return cache[name]
 
 
-def _pallas_or_jnp_interp(frame_ref, pname, xs, ys, fxs, fys, bw, bh,
-                          bitdepth, luma, hpel):
-    """Device MC FIR. Default: the XLA gather formulation — measured at
-    22-61 Gsamples/s on a v5e chip, 12-40x FASTER than the Pallas
-    per-block-DMA kernel (rcn/pallas/mc.py), whose one-block-per-grid-step
-    DMA is latency-bound and reads a 15x-amplified aligned window. The
-    Pallas kernel is kept (bit-exact, tested) as the foundation for a
-    future multi-block double-buffered variant; enable with
-    OPENVVC_PALLAS_MC=1. bench.py reports both throughputs."""
-    import os
-
+def _device_interp(frame_ref, pname, xs, ys, fxs, fys, bw, bh, bitdepth,
+                   luma, hpel):
+    """Device MC FIR: the XLA gather formulation of rcn/jax_mc.py."""
     from openvvc_tpu.rcn import jax_mc
-    from openvvc_tpu.rcn.data_mc import MC_FILTERS_4, MC_FILTERS_C, MC_FILTERS_L
 
-    use_pallas = os.environ.get("OPENVVC_PALLAS_MC") == "1"
-    if not use_pallas or bw > 64 or bh > 64:
-        plane = _dev_plane(frame_ref, pname)
-        return jax_mc.interp_14bit_jit(plane, xs, ys, fxs, fys, bw, bh,
-                                       bitdepth, luma=luma, hpel=hpel)
-    from openvvc_tpu.rcn.pallas.mc import McPallas
-
-    cache = getattr(frame_ref, "_mc_pallas", None)
-    if cache is None:
-        cache = frame_ref._mc_pallas = {}
-    if pname not in cache:
-        cache[pname] = McPallas(getattr(frame_ref, pname))
-    mcp = cache[pname]
-
-    def rows(fr):
-        if luma:
-            tab = MC_FILTERS_4 if (bw == 4 and bh == 4) else MC_FILTERS_L
-            ident = np.zeros(8, np.int32)
-            ident[3] = 64
-            f = np.where(fr[:, None] == 0, ident[None, :],
-                         tab[np.where(hpel & (fr == 8), 15, fr - 1)])
-            return f
-        identc = np.zeros(8, np.int32)
-        identc[3] = 64
-        padded = np.zeros((MC_FILTERS_C.shape[0], 8), np.int32)
-        padded[:, 2:6] = MC_FILTERS_C
-        return np.where(fr[:, None] == 0, identc[None, :], padded[fr - 1])
-
-    # patch origin: luma before=3 matches the kernel; chroma rows are
-    # embedded so the same x-3 origin reads x-1..x+2 through taps 2..5
-    return mcp.interp_14bit(xs, ys, rows(fxs), rows(fys), bw, bh, bitdepth)
+    plane = _dev_plane(frame_ref, pname)
+    return jax_mc.interp_14bit_jit(plane, xs, ys, fxs, fys, bw, bh,
+                                   bitdepth, luma=luma, hpel=hpel)
 
 
 def precompute_inter_mc(parsed, params, tools, refs, bitdepth, device=True):
@@ -159,7 +122,7 @@ def precompute_inter_mc(parsed, params, tools, refs, bitdepth, device=True):
         fxs = np.asarray([j[4] for j in jobs], np.int32)
         fys = np.asarray([j[5] for j in jobs], np.int32)
         if device:
-            out = np.asarray(_pallas_or_jnp_interp(
+            out = np.asarray(_device_interp(
                 frame_ref, pname, xs, ys, fxs, fys, bw, bh, bitdepth,
                 luma, hpel))
         else:

@@ -17,7 +17,7 @@ compounds across pictures). Notable reference behaviors mirrored exactly:
 The grain databases (13x13 cutoff pairs of 64x64 int8 fields) are
 generated once from the RDD-5 constant tables (data_fg.npz, see
 tools/extract_fg_tables.py) via two exact integer 64x64 matrix products —
-pure MXU-shaped work, done here in numpy at init (a few ms total).
+pure matrix work, done here in numpy at init (a few ms total).
 """
 
 from __future__ import annotations

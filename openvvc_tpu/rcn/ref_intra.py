@@ -10,7 +10,7 @@ fill_ref_above_0 :320, filter_ref_samples :48), rcn_intra_dc_planar.c,
 rcn_intra_angular.c, rcn_intra.c (vvc_intra_pred :484, chroma :931-1130,
 derive_wide_angular_mode :55).
 
-This module is the test oracle for the JAX/Pallas kernels and the engine of
+This module is the test oracle for the JAX kernels and the engine of
 the numpy decode path used for MD5 verification against the reference binary.
 """
 

@@ -8,8 +8,8 @@ row clamps expressed as per-row plane selects (host-precomputed masks, no
 gathers), 4x4-block laplacian sums are strided window reductions, the
 branchy direction/activity classifier is branchless integer math (the one
 cross product compare that needs 35 bits runs as a 15-bit-limb double-word
-compare), and per-block filter coefficients resolve with a one-hot matmul
-over the stacked (transpose x class) tables so the MXU does the lookup.
+compare), and per-block filter coefficients resolve by direct indexing
+into the stacked (transpose x class) tables.
 Filtering itself is 12 (luma) / 6 (chroma) clipped-difference taps over
 VB-row-resolved shifted planes.  Bit-exact vs rcn/ref_alf.py (itself
 oracle-validated against the reference binary).
@@ -217,7 +217,7 @@ def build_alf_tables(alf_params, filters, cc_data, ctb_log2, pic_w, pic_h,
     if not any_on:
         return None
     S = _bucket_pow2(max(1, len(fsets)))
-    sets = np.zeros((S, 100, 26), np.float32)
+    sets = np.zeros((S, 100, 26), np.int32)
     for si, fs in enumerate(fsets):
         sets[si, :, :13] = filters.coeff[fs].reshape(100, 13)
         sets[si, :, 13:] = filters.clip[fs].reshape(100, 13)
@@ -401,19 +401,14 @@ def classify(xp, reg_pad, y0_abs, tabs, H, W, bitdepth):
 def _resolve_coeffs(xp, cls, tr, slot_blk, sets):
     """Per-4x4-block (26,) coeff+clip rows from the stacked set tables.
 
-    np: direct index.  jnp: one-hot f32 matmul so the lookup runs on the
-    MXU (element gathers are ~1000x below memory speed on TPU)."""
+    A direct integer index on both paths: no float arithmetic touches the
+    coefficients or clips (a float matmul lookup may run in TF32)."""
     S = sets.shape[0]
     idx = slot_blk * 100 + tr * 25 + cls
+    flat = sets.reshape(S * 100, 26)
     if xp is np:
-        flat = sets.reshape(S * 100, 26)
         return flat[idx].astype(np.int64)
-    nb = idx.shape[0] * idx.shape[1]
-    iflat = idx.reshape(nb, 1)
-    oh = (iflat == xp.arange(S * 100, dtype=xp.int32)[None, :]) \
-        .astype(xp.float32)
-    out = oh @ xp.asarray(sets.reshape(S * 100, 26))
-    return out.astype(xp.int32).reshape(idx.shape[0], idx.shape[1], 26)
+    return xp.asarray(flat)[idx].astype(xp.int32)
 
 
 # ----------------------------------------------------------------------

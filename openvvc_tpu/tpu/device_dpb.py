@@ -1,4 +1,4 @@
-"""HBM-resident decoded picture buffer: reference planes live on device
+"""Device-resident decoded picture buffer: reference planes live on device
 between frames as edge-padded int16 stacks, so per-frame reconstruction
 reads references without any host round-trip (the reference's frame pool +
 DPB, /root/reference/libovvc/ovdpb.c + ovframepool.c, re-expressed as
@@ -27,21 +27,16 @@ class DeviceDpb:
         uw, uh = (pic_w + 3) >> 2, (pic_h + 3) >> 2
         self.uw, self.uh = uw, uh
         H4, W4 = uh * 4, uw * 4
-        # far-side slack + alignment so the Pallas MC kernels' aligned DMA
-        # windows (16-sublane x 128-lane tiles, up to 128x256) stay in
-        # bounds; window origins are clipped to the un-slacked extent so
-        # the slack is only ever read by alignment overfetch
-        align = lambda v, rows, cols=None: (
-            -(-(v + rows) // 16) * 16 if cols is None
-            else -(-(v + cols) // 128) * 128)
-        self.hp = align(H4 + 2 * PAD_L, 128)
-        self.wp = align(W4 + 2 * PAD_L, 0, 256)
+        # the MC pad margins on every side: clipped MVs keep every MC
+        # window inside them (mc_dense.PAD_L / PAD_C)
+        self.hp = H4 + 2 * PAD_L
+        self.wp = W4 + 2 * PAD_L
         self.chroma = chroma
         self.nslots = nslots
         self.y = jnp.zeros((nslots, self.hp, self.wp), jnp.int16)
         if chroma:
-            self.hcp = align(uh * 2 + 2 * PAD_C, 64)
-            self.wcp = align(uw * 2 + 2 * PAD_C, 0, 256)
+            self.hcp = uh * 2 + 2 * PAD_C
+            self.wcp = uw * 2 + 2 * PAD_C
             self.cb = jnp.zeros((nslots, self.hcp, self.wcp), jnp.int16)
             self.cr = jnp.zeros((nslots, self.hcp, self.wcp), jnp.int16)
         else:

@@ -38,8 +38,6 @@ class Cfg(NamedTuple):
     ctb_log2: int
     alf_on: bool = False
     entries: tuple = ()   # ((ctu_x, ctu_y, nb_w, nb_h), ...) for ALF
-    mc_pallas: bool = False
-    mc_dims: tuple = ()   # padded unit-grid dims for the Pallas MC classes
     mip_on: bool = False  # any KIND_MIP job in this picture
     lmcs_on: bool = False
     cclm_on: bool = False  # any KIND_CCLM chroma job
@@ -139,16 +137,9 @@ def frame_step(dpb_y, dpb_cb, dpb_cr, slot, arrs, cfg: Cfg):
     pred_cb_d = pred_cr_d = None  # LMCS: chroma residual add deferred
     m2 = None
     if cfg.has_inter:
-        if cfg.mc_pallas:
-            from openvvc_tpu.tpu.mc_pallas_dense import mc_pallas
-
-            pred_y, pred_cb, pred_cr = mc_pallas(
-                jnp, dpb_y, dpb_cb, dpb_cr, arrs["mc"], cfg.mc_dims, bd,
-                uw, uh, cfg.chroma)
-        else:
-            pred_y, pred_cb, pred_cr = mc_dense(
-                jnp, dpb_y, dpb_cb, dpb_cr, arrs["margs"], bd, uw, uh,
-                cfg.chroma)
+        pred_y, pred_cb, pred_cr = mc_dense(
+            jnp, dpb_y, dpb_cb, dpb_cr, arrs["margs"], bd, uw, uh,
+            cfg.chroma)
         if lmcs is not None:
             # inter luma prediction is forward-reshaped before the
             # residual add (rcn_lmcs.c:173; refs live unmapped in the DPB)
@@ -336,15 +327,13 @@ def frame_step(dpb_y, dpb_cb, dpb_cr, slot, arrs, cfg: Cfg):
 
 
 # ---------------------------------------------------------------------------
-# argument packing: the arrs tree holds dozens of small numpy leaves; the
-# per-transfer H2D latency of this target (~1-2 ms each) makes leaf-wise
-# upload cost ~80 ms/frame.  Small leaves are packed into ONE uint8 blob on
-# the host and unpacked with static slices + bitcasts inside the jitted
-# program (measured: frame exec 116 ms with leaf-wise upload, 37 ms with
-# device-resident args).
+# argument packing: the arrs tree holds dozens of small numpy leaves, each
+# of which would otherwise be its own host-to-device transfer.  Small leaves
+# are packed into ONE uint8 blob on the host and unpacked with static
+# slices + bitcasts inside the jitted program.
 # ---------------------------------------------------------------------------
 
-_BIG = 1 << 18  # leaves >= 256 KiB ship as-is (latency amortized)
+_BIG = 1 << 18  # leaves >= 256 KiB ship as-is
 
 
 def pack_arrs(arrs):

@@ -481,15 +481,14 @@ def predict_wave_step(jnp, plane, resid, jf, bitdepth, luma, tile=TILE,
     [J_NFIELDS, B] int32 (mode < 0 lanes are no-ops). Returns the updated
     plane. All reference math in int32.
 
-    Formulation notes (TPU): in "oriented" space (line L along the
+    Formulation notes: in "oriented" space (line L along the
     prediction direction, position P across it) the angular read index is
     main[s(L) + P] — slope exactly 1 in P — so the 2-D gather becomes a
     one-hot (B,T,K) matmul against a Hankel stack of the main line (built
     from static shifts); same for the positive-PDPC side read (slope 1 in
     L).  Every other per-tile reference read is a contiguous window =
     vmapped dynamic_slice.  The tile write is a masked-delta window
-    scatter-add.  Element gathers never touch the big planes: XLA TPU
-    lowers them ~1000x below memory speed.
+    scatter-add.  Element gathers never touch the big planes.
     """
     import jax
     from jax import lax

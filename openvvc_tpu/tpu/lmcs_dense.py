@@ -4,9 +4,9 @@ chroma scaling).
 Parity: rcn/ref_lmcs.py (itself bit-exact vs /root/reference/libovvc/
 rcn_lmcs.c:96-377 and rcn_residuals.c scale_add_residual:46).
 
-TPU formulation: both reshaper LUTs are piecewise linear over 16 uniform
+Formulation: both reshaper LUTs are piecewise linear over 16 uniform
 (forward) / data-driven (backward) windows, so the per-sample LUT gather
-becomes 16 compare/select terms on the VPU — no element gathers.  The
+becomes 16 compare/select terms — no element gathers.  The
 per-64x64-block chroma scale needs the RECONSTRUCTED mapped luma
 neighbours, so it is derived on device after the luma waves complete:
 the above/left neighbour lines of every block are strided slices of the

@@ -5,11 +5,9 @@ PU-clipped MV, reference indices, and BCW/uni/bi weights emitted by
 ov_build_ir. The host turns the grid into flat per-unit window origins +
 fraction codes (prepare_mc_args, cheap numpy); the device side is pure
 slice-gathers — jax.vmap(lax.dynamic_slice) windows from the edge-padded
-reference stack in HBM — separable 8/4-tap FIRs with inline tap selection,
-and one weighted combine. No element-indexed gathers anywhere: XLA TPU
-lowers element gathers at ~80 Melem/s while slice gathers run at memory
-speed (measured on chip), which is why indices are host-side args and the
-windows are dynamic-slices.
+reference stack in device memory — separable 8/4-tap FIRs with inline tap
+selection, and one weighted combine. No element-indexed gathers: indices
+are host-side args and the windows are dynamic-slices.
 
 Parity: put_vvc_qpel/epel_* via rcn/ref_mc.py (ref anchor
 /root/reference/libovvc/rcn_mc.c:448-720, rcn_inter.c:521-760). The
@@ -75,7 +73,7 @@ def prepare_mc_args(gmv, gref, gw, ghpel, lut0, lut1, uw, uh, glist=None):
 
 def _taps(xp, table, frac, k):
     """Tap k for each unit: select-sum over the (nfrac, ntap) table —
-    avoids an element gather; nfrac * N compares on the VPU."""
+    avoids an element gather; nfrac * N compares."""
     acc = xp.zeros(frac.shape, xp.int32)
     for j in range(table.shape[0]):
         t = int(table[j, k])

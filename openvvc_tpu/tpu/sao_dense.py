@@ -125,10 +125,10 @@ def _add_border_masks(out, entries, ctb_log2, pic_w, pic_h, ncomp):
 def sao_plane(xp, plane, c, tabs, ctb_log2, bitdepth):
     """Apply SAO to one plane (int32 in, int32 out).
 
-    Gather-free formulation for the TPU: per-CTU tables are upsampled to
-    per-sample planes by broadcast (repeat), data-dependent table lookups
-    become compare/select sums, and neighbour reads are static pad+slice
-    shifts — XLA element gathers run ~1000x below memory speed on TPU."""
+    Gather-free formulation: per-CTU tables are upsampled to per-sample
+    planes by broadcast (repeat), data-dependent table lookups become
+    compare/select sums, and neighbour reads are static pad+slice
+    shifts."""
     sh = 0 if c == 0 else 1
     H, W = plane.shape
     lg = ctb_log2 - sh

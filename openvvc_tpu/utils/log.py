@@ -1,4 +1,4 @@
-"""Leveled logging with a replaceable sink — the TPU framework's analog
+"""Leveled logging with a replaceable sink — this decoder's analog
 of the reference's ovlog (ovlog.c:37-115, ovlog.h:41-53): a global level
 (ERROR..TRACE), a stderr default sink with per-level colored prefixes,
 and a user-replaceable callback (ovdec_set_log_callback, ovdec.h:156).

@@ -4,7 +4,7 @@ This replaces the reference's per-thread OVCTUDec + CABAC line buffers
 (/root/reference/libovvc/ctudec.h:570-808, slicedec.h:81-156). Instead of
 1-D rotating line buffers we keep full-tile 2-D neighbor maps at 4x4
 granularity — simpler, bit-identical in effect, and the natural layout to
-hand to batched TPU kernels later.
+hand to batched device kernels later.
 
 The parse produces a list of `CU` IR nodes per CTU (the "CTU tensor IR" from
 SURVEY.md section 7.1): reconstruction consumes these without touching CABAC

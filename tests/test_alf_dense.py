@@ -129,3 +129,32 @@ def test_alf_dense_jnp_matches_np():
     np.testing.assert_array_equal(np.asarray(jy), dy)
     np.testing.assert_array_equal(np.asarray(jcb), dcb)
     np.testing.assert_array_equal(np.asarray(jcr), dcr)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_alf_coeff_lookup_jnp_matches_np(bd):
+    """The device coefficient/clip lookup is an integer index: equal to
+    the numpy branch at the coefficient and clip extremes, and free of
+    matmuls (a float32 matmul may run in TF32 on a GPU)."""
+    import jax
+    import jax.numpy as jnp
+
+    from openvvc_tpu.rcn.ref_alf import _clip_lut
+
+    rng = np.random.RandomState(bd)
+    S = 4
+    sets = np.zeros((S, 100, 26), np.int32)
+    sets[:, :, :13] = rng.choice([-128, -127, -1, 0, 1, 126, 127],
+                                 (S, 100, 13))
+    sets[:, :, 13:] = rng.choice(np.asarray(_clip_lut(bd)), (S, 100, 13))
+    assert sets[:, :, 13:].max() == 1 << bd
+    cls = rng.randint(0, 25, (32, 48)).astype(np.int32)
+    tr = rng.randint(0, 4, (32, 48)).astype(np.int32)
+    slot = rng.randint(0, S, (32, 48)).astype(np.int32)
+
+    want = alf_dense._resolve_coeffs(np, cls, tr, slot, sets)
+    lookup = lambda c, t, s, st: alf_dense._resolve_coeffs(jnp, c, t, s, st)
+    got = np.asarray(jax.jit(lookup)(cls, tr, slot, sets))
+    np.testing.assert_array_equal(got, want)
+    assert "dot_general" not in str(jax.make_jaxpr(lookup)(cls, tr, slot,
+                                                           sets))

@@ -1,4 +1,4 @@
-"""Device CCLM/MDLM (KIND_CCLM chroma wave jobs): the TPU frame program
+"""Device CCLM/MDLM (KIND_CCLM chroma wave jobs): the device frame program
 must decode CCLM streams bit-identically to the host decoder across all
 three modes and both luma-sample alignments."""
 

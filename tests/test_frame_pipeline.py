@@ -1,4 +1,4 @@
-"""Frame pipeline depth (-t): the TPU path chains device programs on the
+"""Frame pipeline depth (-t): the device path chains device programs on the
 donated DPB stacks (XLA data flow = the reference's cross-frame watermark,
 dpb.c:1222-1361, at frame granularity) — output must be byte-identical at
 every pipeline depth, and the backlog must respect the bound."""

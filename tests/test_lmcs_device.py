@@ -1,4 +1,4 @@
-"""Device LMCS (tpu/lmcs_dense.py): the TPU frame program must decode
+"""Device LMCS (tpu/lmcs_dense.py): the device frame program must decode
 LMCS streams (reshaper curve + chroma residual scaling) bit-identically
 to the host decoder, intra and inter."""
 

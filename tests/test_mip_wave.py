@@ -1,4 +1,4 @@
-"""Device MIP (KIND_MIP wave jobs): the TPU frame program must decode
+"""Device MIP (KIND_MIP wave jobs): the device frame program must decode
 MIP streams bit-identically to the host decoder (itself oracle
 bit-exact), across all three size classes and transposes."""
 

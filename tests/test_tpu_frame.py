@@ -1,4 +1,4 @@
-"""End-to-end TPU frame pipeline vs the host decoder (itself oracle
+"""End-to-end device frame pipeline vs the host decoder (itself oracle
 bit-exact vs the reference binary): Decoder(use_tpu=True) must produce
 byte-identical YUV with every picture going through the fused device
 program (no host fallback)."""

@@ -14,11 +14,12 @@ Usage: python tools/gen_bench_stream.py [--width 1920 --height 1080
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from openvvc_tpu.testing.generator import (  # noqa: E402
     StreamConfig,
